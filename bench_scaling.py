@@ -1,20 +1,20 @@
 """Weak-scaling harness: iterations/s of the fully sharded coupled step at
-1/2/4/8 devices with the per-device problem size held constant.
+1/2/4/8 devices with the per-device problem size held constant, plus the
+compiled-HLO collective census of one sweep.
 
-On this box it runs on VIRTUAL CPU devices (JAX_PLATFORMS=cpu
-XLA_FLAGS=--xla_force_host_platform_device_count=8), where all "devices"
+On VIRTUAL CPU devices (JAX_PLATFORMS=cpu
+XLA_FLAGS=--xla_force_host_platform_device_count=8) all "devices"
 time-share one physical host AND XLA splits the host thread pool per
 virtual device — so NO it/s ratio between device counts is a scaling
-efficiency, in either direction.  On a virtual mesh this harness therefore
-reports STRUCTURE VALIDATION ONLY: the fully sharded program (XLA-derived
-partitioning and explicit shard_map collectives) compiles, runs, and
-produces finite results at every device count, with the raw it/s recorded
-for completeness and explicitly labeled non-comparable.  Hardware
-weak-scaling (the >=80%-at-2-hosts north star) needs a real multi-chip
-slice, where this same code scales over ICI and the efficiency metric
-below activates.
+efficiency, in either direction.  There the harness reports STRUCTURE
+VALIDATION ONLY: the fully sharded program (XLA-derived partitioning and
+explicit shard_map collectives) compiles, runs, and produces finite results
+at every device count, with the raw it/s labeled non-comparable.  On a host
+with several GPUs the same code runs over NVLink and the weak-scaling
+efficiency is printed.
 """
 import json
+import sys
 import time
 
 import numpy as np
@@ -64,13 +64,11 @@ def measure(n_devices: int, iters: int = 20, explicit: bool = False,
                      out_shardings=(state_sh, gram_sh, rep))
     args = (jax.device_put(state, state_sh), jax.device_put(data, data_sh),
             jax.device_put(grams, gram_sh), jax.device_put(colnorms, rep))
-    out = jitted(*args)
-    np.asarray(out[0].fac[0])        # warmup + compile
+    jax.block_until_ready(jitted(*args))        # warmup + compile
     best = 0.0
     for _ in range(repeats):
         t0 = time.perf_counter()
-        out = jitted(*args)
-        np.asarray(out[0].fac[0])
+        jax.block_until_ready(jitted(*args))
         best = max(best, iters / (time.perf_counter() - t0))
     return best
 
@@ -216,124 +214,9 @@ def run_census(counts) -> dict:
     return out
 
 
-# --- analytic weak-scaling projection (model, not a measurement) -----------
-#
-# Real >=2-chip hardware is unavailable in this environment, so the >=80%
-# weak-scaling north star cannot be MEASURED here.  This model combines
-# (a) the per-sweep collective inventory of the sharded program — site
-#     structure validated by the census above, payload bytes computed from
-#     the bench workloads' shapes (bench.py: flagship type-4 f32, R 16/20/20;
-#     PAR2 K=512 slices of 256x256, R=32),
-# (b) the MEASURED single-chip sweep time from the latest BENCH artifact
-#     (TPU v5e, bench.py), and
-# (c) published v5e interconnect figures: 1600 Gbps per-chip ICI
-#     (bidirectional aggregate; one-direction ring bandwidth 100 GB/s
-#     assumed) and ~1 us per-hop collective latency (scaling-book
-#     ballpark).
-# Weak scaling holds PER-CHIP work constant: each chip keeps the bench-size
-# shard (the sharded long mode grows N-fold globally), psum'd partials keep
-# their replicated (I_m, R) sizes, and the sharded-mode factor exchange
-# gathers N-1 remote blocks of the per-chip extent.
-
-V5E_ICI_ONEWAY_BPS = 100e9   # 1600 Gbps bidi aggregate -> 100 GB/s one-way
-T_HOP_S = 1e-6               # per-hop collective latency assumption
-
-
-def _ring_times(allreduce_bytes, allgather_perchip_bytes, N,
-                bw=V5E_ICI_ONEWAY_BPS, t_hop=T_HOP_S):
-    """(wire_seconds, latency_seconds) per sweep per chip for ring
-    collectives: all-reduce moves 2B(N-1)/N over 2(N-1) hops, all-gather
-    moves B_perchip(N-1) over N-1 hops."""
-    wire = lat = 0.0
-    for B in allreduce_bytes:
-        wire += 2.0 * (N - 1) / N * B / bw
-        lat += 2 * (N - 1) * t_hop
-    for B in allgather_perchip_bytes:
-        wire += (N - 1) * B / bw
-        lat += (N - 1) * t_hop
-    return wire, lat
-
-
-def _measured_sweep_times():
-    """Single-chip sweep seconds for the two modeled workloads from the
-    newest BENCH_r*.json (flagship JSON line + the par2_k512 tail line);
-    falls back to the round-4 TPU numbers."""
-    import glob
-    import re
-    flag, par2 = 2543.628, 225.9          # BENCH_r04 fallbacks
-    for path in sorted(glob.glob("BENCH_r*.json"), reverse=True):
-        try:
-            rec = json.load(open(path))
-        except Exception:
-            continue
-        tail = rec.get("tail", "")
-        m = re.search(r"par2_k512_iters_per_s: ([\d.]+)", tail)
-        p = rec.get("parsed") or {}
-        if p.get("value") and m:
-            flag, par2 = float(p["value"]), float(m.group(1))
-            return 1.0 / flag, 1.0 / par2, path
-    return 1.0 / flag, 1.0 / par2, "fallback"
-
-
-def weak_scaling_model(counts=(2, 4, 8, 16)) -> dict:
-    """Projected weak-scaling efficiency for the two bench workloads
-    (CLEARLY MODEL-BASED — see the block comment above for inputs and
-    assumptions).  'serial' puts every collective on the critical path
-    (the bulk-psum layout); 'overlapped' lets communication hide behind
-    compute up to full overlap (the ring-pipelined layout,
-    make_sharded_mttkrp_pipelined, whose HLO-level independence the
-    census asserts) — efficiency = t_compute / max(t_compute, t_comm)."""
-    b = 4  # f32 on the TPU bench path
-    t_flag, t_par2, src = _measured_sweep_times()
-    workloads = {
-        "flagship_type4": {
-            "t_compute_s": t_flag,
-            # psum'd replicated partials (I_m, R) per mode update, per sweep
-            "allreduce_bytes": [(128 * 16 + 256 * 16) * b,
-                                (128 * 20 + 64 * 20) * b,
-                                128 * 20 * b],
-            # sharded-mode factor exchange: per-chip block bytes
-            "allgather_perchip_bytes": [512 * 16 * b, 1024 * 20 * b,
-                                        4096 * 20 * b],
-        },
-        "par2_k512": {
-            "t_compute_s": t_par2,
-            # K-sharded slices: A-mode partial psum (I=256, R=32) + gram
-            # (R,R) once per sweep, DeltaB (R,R) psum per inner ADMM iter
-            # (x5), 4 residual scalars
-            "allreduce_bytes": [256 * 32 * b, 32 * 32 * b]
-                               + [32 * 32 * b] * 5 + [8] * 4,
-            "allgather_perchip_bytes": [],
-        },
-    }
-    out = {"measured_sweep_source": src,
-           "assumptions": {
-               "ici_oneway_bytes_per_s": V5E_ICI_ONEWAY_BPS,
-               "per_hop_latency_s": T_HOP_S,
-               "weak_scaling": "per-chip shard held at bench size",
-               "label": "MODEL-BASED projection, not a measurement"},
-           "workloads": {}}
-    for name, w in workloads.items():
-        tc = w["t_compute_s"]
-        curve = {}
-        for N in counts:
-            wire, lat = _ring_times(w["allreduce_bytes"],
-                                    w["allgather_perchip_bytes"], N)
-            comm = wire + lat
-            curve[str(N)] = {
-                "t_comm_us": round(comm * 1e6, 1),
-                "efficiency_serial": round(tc / (tc + comm), 4),
-                "efficiency_overlapped": round(tc / max(tc, comm), 4)}
-        out["workloads"][name] = {
-            "t_compute_us": round(tc * 1e6, 1),
-            "allreduce_bytes_per_sweep": sum(w["allreduce_bytes"]),
-            "allgather_perchip_bytes_per_sweep":
-                sum(w["allgather_perchip_bytes"]),
-            "curve": curve}
-    return out
-
-
-def main(write_artifact: bool = False):
+def main():
+    from matlab_code_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     results = {}
     results_explicit = {}
     virtual = jax.devices()[0].platform == "cpu"
@@ -343,14 +226,10 @@ def main(write_artifact: bool = False):
               "comparable; this run is collective-structure validation "
               "only, not a scaling measurement.")
     counts = [n for n in (1, 2, 4, 8) if n <= len(jax.devices())]
+    if len(counts) < 2:
+        sys.exit(f"bench_scaling.py compares device counts; JAX found "
+                 f"{len(jax.devices())} device(s), it needs 2 or more")
     census = run_census(counts)
-    model = weak_scaling_model()
-    for name, w in model["workloads"].items():
-        eff = {N: (c["efficiency_serial"], c["efficiency_overlapped"])
-               for N, c in w["curve"].items()}
-        print(f"# weak-scaling MODEL {name}: t_compute="
-              f"{w['t_compute_us']}us, eff(serial, overlapped) per N = "
-              f"{eff}")
     for n in counts:
         results[n] = measure(n)
         print(f"devices={n}: {results[n]:.2f} it/s "
@@ -359,61 +238,25 @@ def main(write_artifact: bool = False):
         results_explicit[n] = measure(n, explicit=True)
         print(f"devices={n}: {results_explicit[n]:.2f} it/s "
               f"(explicit shard_map collectives)")
-    effs = {}
-    if len(counts) > 1 and not virtual:
-        base = results[counts[0]]
-        for n in counts[1:]:
-            effs[n] = results[n] / base
-            print(f"weak-scaling efficiency @ {n} devices: {effs[n]:.2%}")
+    device = {"platform": jax.devices()[0].platform,
+              "kind": jax.devices()[0].device_kind,
+              "count": len(jax.devices())}
     if virtual:
         record = {"metric": "sharded_program_collective_sites_validated",
                   "value": sum(census["sites_explicit_shard_map"].values()),
-                  "unit": "collective_sites_per_sweep",
-                  "vs_baseline": None}
+                  "unit": "collective_sites_per_sweep"}
     else:
+        base = results[counts[0]]
+        for n in counts[1:]:
+            print(f"weak-scaling efficiency @ {n} devices: "
+                  f"{results[n] / base:.2%}")
         record = {"metric": "weak_scaling_efficiency",
-                  "value": round(effs.get(counts[-1], 1.0), 4),
-                  "unit": "fraction",
-                  "vs_baseline": round(results[counts[-1]] /
-                                       results[counts[0]], 3)}
-    print(json.dumps(record))
-    if write_artifact:
-        art = {"platform": jax.devices()[0].platform,
-               "devices": counts,
-               "scaling_measurement": not virtual,
-               "raw_iters_per_s_pjit_NOT_COMPARABLE_ACROSS_N" if virtual
-               else "iters_per_s_pjit": results,
-               "raw_iters_per_s_explicit_shard_map_NOT_COMPARABLE_ACROSS_N"
-               if virtual else "iters_per_s_explicit_shard_map":
-                   results_explicit,
-               "weak_scaling_efficiency": effs if not virtual else None,
-               "weak_scaling_efficiency_modeled": model,
-               "collective_census_per_sweep": census,
-               "census_assertions": [
-                   "n=1 compiles with ZERO collectives",
-                   "collective op-site signature identical at n=2/4/8",
-                   ">=1 all-reduce site per sweep at n>=2 (partial-MTTKRP "
-                   "+ DeltaB/consensus psums)",
-                   "explicit shard_map variant carries >= the pjit "
-                   "all-reduce sites (hand-pinned psums present)"],
-               "note": ("virtual CPU mesh: devices time-share one host and "
-                        "split its thread pool, so it/s is NOT comparable "
-                        "across device counts in either direction — the "
-                        "CHECKABLE evidence here is the compiled-HLO "
-                        "collective census (mesh-size-independent op-site "
-                        "structure, payload shapes matching the analytic "
-                        "inventory, SURVEY.md §2.3).  Hardware weak-scaling "
-                        "requires a real multi-chip slice; "
-                        "tests/test_shard_mttkrp.py, tests/test_mesh_"
-                        "coupled.py and dryrun_multichip pin numeric "
-                        "correctness."
-                        if virtual else
-                        "hardware weak-scaling at constant per-device work")}
-        with open("SCALING_r05.json", "w") as f:
-            json.dump(art, f, indent=1, default=float)
-        print("wrote SCALING_r05.json")
+                  "value": results[counts[-1]] / base,
+                  "unit": "fraction"}
+    print(json.dumps({**record, "device": device}))
+    if "--census" in sys.argv:
+        print(json.dumps(census, default=float))
 
 
 if __name__ == "__main__":
-    import sys
-    main(write_artifact="--artifact" in sys.argv)
+    main()

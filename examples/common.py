@@ -9,10 +9,14 @@ import numpy as np
 
 import jax
 
+from matlab_code_tpu.utils.compile_cache import enable_compile_cache
+
 if jax.default_backend() == "cpu":
     # the reference is float64 with 1e-7..1e-14 tolerances; match it on CPU
-    # (TPU runs keep the f32 default)
+    # (GPU runs keep the f32 default)
     jax.config.update("jax_enable_x64", True)
+else:
+    enable_compile_cache()
 
 from matlab_code_tpu import (
     ProblemSpec, DatasetSpec, CouplingSpec, ConstraintSpec, AlgOptions,

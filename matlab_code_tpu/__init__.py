@@ -1,10 +1,10 @@
-"""matlab_code_tpu — a TPU-native (JAX/XLA/Pallas) framework for constrained,
-regularized and linearly coupled matrix/tensor factorizations via AO-ADMM.
+"""matlab_code_tpu — a JAX/XLA framework for constrained, regularized and
+linearly coupled matrix/tensor factorizations via AO-ADMM, run on GPUs.
 
-Re-designed from scratch for TPU with the capabilities of the
-AOADMM-DataFusionFramework (reference: /root/reference, MATLAB).  The compute
-path is pure JAX (jit / lax.while_loop / vmap / pjit); the solver state is a
-pytree; problem structure is resolved at trace time.
+Re-designed from scratch in JAX with the capabilities of the
+AOADMM-DataFusionFramework (the MATLAB reference).  The compute path is pure
+JAX (jit / lax.while_loop / vmap / shard_map); the solver state is a pytree;
+problem structure is resolved at trace time.
 
 Public API (rough mapping to the reference):
   cmtf_aoadmm(...)            <-> functions/cmtf_AOADMM.m

@@ -1,7 +1,7 @@
 """Inner ADMM loops: constrained-only, PARAFAC2-Bk, and the six coupled
 variants (coupling types 0-5).
 
-TPU-native equivalents of the nested functions in cmtf_fun_AOADMM.m:509-1075.
+JAX equivalents of the nested functions in cmtf_fun_AOADMM.m:509-1075.
 Each loop is a lax.while_loop carrying the full SolverState; per-slice /
 per-row PARAFAC2 work is batched over K (vmap-free einsums + batched
 cholesky/SVD), and problem structure (which modes, which roles, which
@@ -52,22 +52,10 @@ def make_update_constraint(spec: ProblemSpec, proxes):
     return upd
 
 
-def _resolve_inner_solve(options, batched: bool = False) -> str:
-    method = options.inner_solve
-    if method not in ("auto", "chol", "inverse", "newton"):
-        raise ValueError(f"inner_solve must be 'auto'|'chol'|'inverse'"
-                         f"|'newton', got {method!r}")
-    if method == "auto":
-        if jax.default_backend() == "tpu":
-            return "newton" if batched else "inverse"
-        return "chol"
-    return method
-
-
 def _chol_rcond_bad(L, tol: float):
     """Early ill-conditioning check on a Cholesky factor (or batch of them):
     the rcond estimate (min/max diagonal)^2 below tol, or non-finite.  The
-    TPU-native analogue of the reference's nearlySingularMatrix promotion
+    analogue of the reference's nearlySingularMatrix promotion
     (cmtf_fun_AOADMM.m:83-84)."""
     d = jnp.abs(jnp.diagonal(L, axis1=-2, axis2=-1))
     r = (jnp.min(d) / jnp.max(d)) ** 2
@@ -87,30 +75,38 @@ def make_spd_solver(Bmat, options, illtol: float = 0.0, lmin=None):
       illc:      ill-conditioning flag (the nearlySingularMatrix analogue,
                  cmtf_fun_AOADMM.m:83-84); always False when illtol == 0.
 
-    Method per options.inner_solve (see AlgOptions): 'chol' factorizes and
-    substitutes per call; 'inverse' factorizes and inverts once; 'newton'
-    inverts by matmul-only Newton-Hotelling — the TPU path for K-batched
-    systems, where jnp.linalg.cholesky is a slow sequential kernel.  lmin:
-    optional eigenvalue lower bound (the + rho/2 I terms of the ADMM
-    systems) sharpening the Newton initial scaling.
+    Method per options.inner_solve (see AlgOptions; 'auto' must already be
+    resolved, options.resolve_auto): 'chol' factorizes and substitutes per
+    call; 'inverse' factorizes and inverts once; 'newton' inverts by
+    matmul-only Newton-Hotelling.  lmin: optional eigenvalue lower bound
+    (the + rho/2 I terms of the ADMM systems) sharpening the Newton initial
+    scaling.
     """
-    method = _resolve_inner_solve(options, batched=Bmat.ndim >= 3)
+    method = options.inner_solve
+    if method not in ("chol", "inverse", "newton"):
+        raise ValueError(f"inner_solve {method!r} is not resolved; pass "
+                         f"options through options.resolve_auto first")
+    # An explicit inverse stands in for two triangular solves, which run in
+    # full precision; so it is applied at HIGHEST, never in TF32/bf16 (on a
+    # GPU under 'default' that lower precision kept the flagship fit from
+    # converging, PERF.md).
+    hi = lax.Precision.HIGHEST
     if method == "newton":
         Binv, rcond = spd_inverse_newton(Bmat, lmin=lmin)
         if illtol > 0:
             illc = jnp.any(~jnp.isfinite(rcond) | (rcond < illtol))
         else:
             illc = jnp.bool_(False)
-        return (lambda A: A @ Binv,
-                lambda A: (Binv @ A[..., None])[..., 0], illc)
-    L = chol_lower(Bmat)
-    illc = _chol_rcond_bad(L, illtol) if illtol > 0 else jnp.bool_(False)
-    if method == "chol":
-        return (lambda A: solve_with_chol(L, A),
-                lambda A: solve_spd_left(L, A[..., None])[..., 0], illc)
-    Binv = spd_inverse_from_chol(L)
-    return (lambda A: A @ Binv,
-            lambda A: (Binv @ A[..., None])[..., 0], illc)
+    else:
+        L = chol_lower(Bmat)
+        illc = _chol_rcond_bad(L, illtol) if illtol > 0 else jnp.bool_(False)
+        if method == "chol":
+            return (lambda A: solve_with_chol(L, A),
+                    lambda A: solve_spd_left(L, A[..., None])[..., 0], illc)
+        Binv = spd_inverse_from_chol(L)
+    return (lambda A: jnp.matmul(A, Binv, precision=hi),
+            lambda A: jnp.matmul(Binv, A[..., None], precision=hi)[..., 0],
+            illc)
 
 
 def eval_res_constr(spec: ProblemSpec, state: SolverState, modes, oldZ: dict):
@@ -191,13 +187,11 @@ def admm_b_parafac2(spec: ProblemSpec, state: SolverState, m: int, p: int,
     K = spec.par2_K(p)
     constrained = spec.is_constrained(m) and constraint_active
     ragged = sizes is not None and len(set(sizes)) > 1
-    # P_k polar method resolved at trace time (options.par2_polar)
+    # P_k polar method ('auto' already resolved, options.resolve_auto)
     method = options.par2_polar
-    if method not in ("auto", "svd", "ns"):
-        raise ValueError(f"par2_polar must be 'auto'|'svd'|'ns', "
-                         f"got {method!r}")
-    if method == "auto":
-        method = "ns" if jax.default_backend() == "tpu" else "svd"
+    if method not in ("svd", "ns"):
+        raise ValueError(f"par2_polar {method!r} is not resolved; pass "
+                         f"options through options.resolve_auto first")
     polar = polar_orth if method == "svd" else partial(
         polar_orth_ns, iters=options.par2_polar_iters)
     if constrained:

@@ -8,7 +8,6 @@ the model tensor exactly like the reference.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from matlab_code_tpu.ops.tensor import ktensor_full, mttkrp, gram, hadamard_grams
@@ -62,21 +61,8 @@ def func_eval(spec: ProblemSpec, data: ProblemData, state, grams,
                     fp = ds.weight * (znorm_consts[p] - 2.0 * f2 + f3)
                 else:
                     # fresh eval, cp_func.m:37-56 / pca_func.m:29-39
-                    from matlab_code_tpu.problem import SparseTensor
-                    from matlab_code_tpu.ops.tensor import mttkrp_sparse
                     facs = [state.fac[j] for j in ds.modes]
-                    if isinstance(X, SparseTensor):
-                        if X.plans is not None and X.ndim == 3:
-                            from matlab_code_tpu.ops.sparse_pallas import (
-                                mttkrp_sparse_pallas)
-                            mk = mttkrp_sparse_pallas(
-                                X.plans[0], tuple(facs),
-                                interpret=jax.default_backend() != "tpu")
-                        else:
-                            mk = mttkrp_sparse(X.indices, X.values, facs, 0,
-                                               facs[0].shape[0])
-                    else:
-                        mk = mttkrp(X, facs, 0)
+                    mk = mttkrp(X, facs, 0)
                     f2 = jnp.sum(mk * facs[0])
                     f3 = jnp.sum(hadamard_grams([gram(U) for U in facs]))
                     fp = ds.weight * (znorm_consts[p] - 2.0 * f2 + f3)

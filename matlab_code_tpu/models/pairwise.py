@@ -12,11 +12,10 @@ with one reference factor:
     M1 ~ sum_i T01[i,j,r] A[i,r]  +  sum_k T12[j,k,r] (C - Cr)[k,r]
     M2 ~ sum_i T02[i,k,r] A[i,r]  +  sum_j T12[j,k,r] (B - Br)[j,r]
 
-with error O(||dF||^2) per MTTKRP — each evaluation is dense MXU einsums
-over (D_a, D_b, R) partials instead of a pass over the data.  The win is
-largest for sparse COO tensors, whose exact data pass is gather-bound
-(docs/ROOFLINE.md): on the 1e7-nnz bench workload a PP sweep costs ~2 ms
-against ~90 ms for three sparse MTTKRPs.
+with error O(||dF||^2) per MTTKRP — each evaluation is dense einsums over
+(D_a, D_b, R) partials instead of a pass over the data.  The win is largest
+for sparse COO tensors, whose exact data pass is a gather and scatter-add
+over every nonzero.
 
 Gating (this module's policy, options.pp_start_tol / pp_refresh_tol):
 sweeps run EXACT until the sweep-over-sweep factor step falls below
@@ -28,8 +27,8 @@ error vanishes — PP-accelerated fits reach the same solutions (pinned by
 tests/test_pairwise.py).
 
 APPROXIMATE and opt-in (`AlgOptions.cp_pairwise_perturbation`); the exact
-paths (einsum / sparse gather / sparse Pallas, cmtf_fun_AOADMM.m:97) remain
-the defaults and the golden/oracle-parity contract.
+MTTKRP (ops/tensor.mttkrp: einsum or sparse gather, cmtf_fun_AOADMM.m:97)
+remains the default and the golden/oracle-parity contract.
 """
 from __future__ import annotations
 
@@ -37,10 +36,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from matlab_code_tpu.ops.tensor import mttkrp
 from matlab_code_tpu.options import AlgOptions
 from matlab_code_tpu.problem import ProblemSpec, ProblemData, SparseTensor, CP
 
-HP = lax.Precision.HIGHEST   # keep PP einsum error at O(d^2), not bf16 feed
+HP = lax.Precision.HIGHEST   # keep PP einsum error at O(d^2), not TF32
 
 
 def eligible_pp_datasets(spec: ProblemSpec, data: ProblemData,
@@ -155,27 +155,6 @@ def pp_sweep_update(spec: ProblemSpec, data: ProblemData, state, p: int,
     return lax.cond(build, build_branch, track_branch, None)
 
 
-def _exact_mttkrp(spec, X, facs, p, local, options):
-    """The exact dispatch (mirrors models/updates.py): einsum for dense,
-    Pallas one-hot-MXU or gather/segment-sum for sparse."""
-    from matlab_code_tpu.ops.tensor import mttkrp, mttkrp_sparse
-    ds = spec.datasets[p]
-    if isinstance(X, SparseTensor):
-        sm = options.sparse_mttkrp
-        use_pallas = (X.plans is not None and
-                      (sm == "pallas" or
-                       (sm == "auto" and jax.default_backend() == "tpu")))
-        if use_pallas:
-            from matlab_code_tpu.ops.sparse_pallas import mttkrp_sparse_pallas
-            return mttkrp_sparse_pallas(
-                X.plans[local], tuple(facs),
-                passes=options.sparse_pallas_passes,
-                interpret=jax.default_backend() != "tpu")
-        return mttkrp_sparse(X.indices, X.values, list(facs), local,
-                             spec.mode_sizes[ds.modes[local]])
-    return mttkrp(X, list(facs), local)
-
-
 def pp_mttkrp(spec, X, facs, p, cache, local, options):
     """Mode-`local` MTTKRP of dataset p at the CURRENT factors `facs`:
     first-order PP evaluation when active, exact dispatch otherwise."""
@@ -195,6 +174,6 @@ def pp_mttkrp(spec, X, facs, p, cache, local, options):
                              B - cache["ref1"], precision=HP))
 
     def exact_eval(_):
-        return _exact_mttkrp(spec, X, facs, p, local, options)
+        return mttkrp(X, list(facs), local)
 
     return lax.cond(cache["active"], pp_eval, exact_eval, None)

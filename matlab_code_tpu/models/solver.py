@@ -1,6 +1,6 @@
 """The AO-ADMM solver: outer alternating-optimization sweep + fit driver.
 
-TPU-native equivalent of functions/cmtf_fun_AOADMM.m (outer loop :87-476) and
+JAX equivalent of functions/cmtf_fun_AOADMM.m (outer loop :87-476) and
 functions/cmtf_AOADMM.m (driver).  The whole outer loop runs as ONE jitted
 lax.while_loop per (problem spec, options): problem structure — models,
 coupling ids/types, constraint kinds, losses — is resolved at trace time, so
@@ -25,7 +25,8 @@ from jax import lax
 from matlab_code_tpu.problem import (
     ProblemSpec, ProblemData, CP, PAR2, check_data_input, has_missing)
 from matlab_code_tpu.state import SolverState, tuple_set
-from matlab_code_tpu.options import AlgOptions, with_matmul_precision
+from matlab_code_tpu.options import (
+    AlgOptions, resolve_auto, with_matmul_precision)
 from matlab_code_tpu.ops import losses
 from matlab_code_tpu.ops.prox import make_prox
 from matlab_code_tpu.ops.tensor import gram, ktensor_full
@@ -117,7 +118,10 @@ def make_outer_step(spec: ProblemSpec, options: AlgOptions, proxes, reg_fns,
     pp_datasets: datasets whose MTTKRPs go through the pairwise-perturbation
     approximation (models/pairwise.py, options.cp_pairwise_perturbation).
     When non-empty, outer_step takes a `pp` cache pytree as a sixth argument
-    and returns it (updated) as a ninth output."""
+    and returns it (updated) as a ninth output.
+
+    'auto' options resolve here for callers that skip fit()."""
+    options = resolve_auto(options)
     lbfgs_steps = {}
     for p, ds in enumerate(spec.datasets):
         if ds.loss != "Frobenius":
@@ -602,39 +606,17 @@ def _has_bk_constraint(spec: ProblemSpec) -> bool:
     return False
 
 
-def attach_sparse_plans(spec: ProblemSpec, data: ProblemData,
-                        options: AlgOptions) -> ProblemData:
-    """Attach Pallas one-hot-MXU MTTKRP plans (ops/sparse_pallas.py) to any
-    3-way SparseTensor when the resolved sparse_mttkrp implementation is
-    'pallas'.  Host-side preprocessing, once per sparsity pattern; no-op on
-    other backends / when plans already exist."""
-    from dataclasses import replace as _dc_replace
-    from matlab_code_tpu.problem import SparseTensor
-    sm = options.sparse_mttkrp
-    if not (sm == "pallas" or
-            (sm == "auto" and jax.default_backend() == "tpu")):
-        return data
-    objs = list(data.objects)
-    changed = False
-    for p, X in enumerate(objs):
-        if isinstance(X, SparseTensor) and X.ndim == 3 and X.plans is None:
-            shape = tuple(spec.mode_sizes[m] for m in spec.datasets[p].modes)
-            objs[p] = X.with_plans(shape)
-            changed = True
-    return _dc_replace(data, objects=tuple(objs)) if changed else data
-
-
 @with_matmul_precision
 def fit_stepwise(spec: ProblemSpec, data: ProblemData, state: SolverState,
                  options: AlgOptions, validate: bool = True):
     """Host-stepped variant of fit(): one jitted outer sweep per call, with
     stopping evaluated on the host and true per-iteration wall times recorded
-    (the reference's out.time_at_it, cmtf_fun_AOADMM.m:455).  ~1 dispatch
-    (~1 ms on this chip) of overhead per iteration vs the fully fused fit()."""
+    (the reference's out.time_at_it, cmtf_fun_AOADMM.m:455).  One dispatch
+    and one host sync of overhead per iteration vs the fully fused fit()."""
     if validate:
         check_data_input(spec, data)
         _warn_loss_data(spec, data)
-    data = attach_sparse_plans(spec, data, options)
+    options = resolve_auto(options)
     miss_flag = has_missing(data)
     znorms = compute_znorm_consts(spec, data, options)
     proxes, reg_fns = build_proxes(spec)
@@ -752,13 +734,14 @@ def fit(spec: ProblemSpec, data: ProblemData, state: SolverState,
     MTTKRP through the explicit shard_map collective path (psum of partial
     MTTKRPs over the mesh axis, parallel/shard_mttkrp.py) instead of letting
     XLA derive the partitioning from input shardings.  SparseTensor datasets
-    go through the nnz-partitioned gather + psum path (the Pallas plan is a
-    single-device layout, so plan attachment is skipped under a mesh)."""
+    go through the nnz-partitioned gather + psum path.
+
+    The 'auto' options resolve here, once, for the default backend
+    (options.resolve_auto)."""
     if validate:
         check_data_input(spec, data)
         _warn_loss_data(spec, data)
-    if mesh is None:
-        data = attach_sparse_plans(spec, data, options)
+    options = resolve_auto(options)
     miss_flag = has_missing(data)
     znorms = compute_znorm_consts(spec, data, options)
     # .dtype (not np.asarray) so a cross-process sharded factor (multi-host

@@ -1,16 +1,15 @@
 """Per-mode precompute for the AO sweep: MTTKRPs, Gram-Hadamards, the rho
 heuristic, and the (regularized) normal-equation matrices.
 
-TPU-native equivalents of cmtf_fun_AOADMM.m:92-251.  The PARAFAC2 per-slice
-loops are replaced by batched einsums over the stacked (K, ., .) arrays, so
-every slice's matmul runs as one batched MXU contraction; padded (ragged)
-rows/columns are zero and drop out of all sums.
+Equivalents of cmtf_fun_AOADMM.m:92-251.  The PARAFAC2 per-slice loops are
+replaced by batched einsums over the stacked (K, ., .) arrays, so every
+slice's matmul runs as one batched contraction; padded (ragged) rows/columns
+are zero and drop out of all sums.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from matlab_code_tpu.ops.tensor import mttkrp, gram, hadamard_grams
@@ -48,36 +47,18 @@ def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     parallel/shard_mttkrp.py) replacing the einsum for this (dataset, mode).
     """
     from matlab_code_tpu.problem import SparseTensor
-    from matlab_code_tpu.ops.tensor import mttkrp_sparse
     ds = spec.datasets[p]
     X = data.objects[p]
     w = ds.weight
     R = ds.rank
     local = ds.modes.index(m)
-    if mttkrp_impl is not None and (isinstance(X, SparseTensor)
-                                    or X.ndim >= 3):
+    sparse = isinstance(X, SparseTensor)
+    if mttkrp_impl is not None and (sparse or X.ndim >= 3):
         # explicit shard_map collective (dense mode-partitioned or sparse
         # nnz-partitioned, parallel/shard_mttkrp.py)
         A = w * mttkrp_impl(X, tuple(state.fac[j] for j in ds.modes))
         C = hadamard_grams([grams[j] for j in ds.modes if j != m])
-    elif isinstance(X, SparseTensor):
-        sm = options.sparse_mttkrp
-        use_pallas = (X.plans is not None and X.ndim == 3 and
-                      (sm == "pallas" or
-                       (sm == "auto" and
-                        jax.default_backend() == "tpu")))
-        if use_pallas:
-            from matlab_code_tpu.ops.sparse_pallas import mttkrp_sparse_pallas
-            A = w * mttkrp_sparse_pallas(
-                X.plans[local], tuple(state.fac[j] for j in ds.modes),
-                passes=options.sparse_pallas_passes,
-                interpret=jax.default_backend() != "tpu")
-        else:
-            A = w * mttkrp_sparse(X.indices, X.values,
-                                  [state.fac[j] for j in ds.modes], local,
-                                  spec.mode_sizes[m])
-        C = hadamard_grams([grams[j] for j in ds.modes if j != m])
-    elif X.ndim == 3 and local > 0 and partials is not None \
+    elif not sparse and X.ndim == 3 and local > 0 and partials is not None \
             and options.cp_dimension_tree and R <= X.shape[0]:
         m0 = ds.modes[0]
         A0 = state.fac[m0]
@@ -94,7 +75,7 @@ def cp_mode_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
             A = w * jnp.einsum("jkr,jr->kr", T1, state.fac[ds.modes[1]],
                                optimize=True)
         C = hadamard_grams([grams[j] for j in ds.modes if j != m])
-    elif X.ndim >= 3:
+    elif sparse or X.ndim >= 3:
         A = w * mttkrp(X, [state.fac[j] for j in ds.modes], local)
         C = hadamard_grams([grams[j] for j in ds.modes if j != m])
     else:
@@ -175,8 +156,8 @@ def par2B_precompute(spec: ProblemSpec, data: ProblemData, state, grams,
     Returns (A (K,Jmax,R), B (K,R,R) the fully assembled normal matrix
     incl. the always-on internal-coupling rho_k/2 I and, when the
     constraint is active this outer iteration, another rho_k/2 I), rho (K,).
-    The caller factorizes/inverts B via make_spd_solver (batched Cholesky
-    is a slow sequential kernel on TPU; the newton mode never builds it).
+    The caller factorizes/inverts B via make_spd_solver (per
+    options.inner_solve; the newton mode never builds a Cholesky factor).
     """
     ds = spec.datasets[p]
     X = data.objects[p]

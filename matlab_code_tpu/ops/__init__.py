@@ -1,5 +1,6 @@
 """Operator library: tensor kernels, dense linear algebra, proximal operators.
 
 Everything here is jit-compatible, batched, and shaped statically so XLA can
-tile matmuls onto the MXU and fuse the elementwise (VPU) work around them.
+hand the matmuls to its GEMM libraries and fuse the elementwise work around
+them.
 """

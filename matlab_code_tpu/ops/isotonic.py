@@ -1,6 +1,6 @@
 """Isotonic and unimodal regression (PAVA / prefix-isotonic), jit-compatible.
 
-TPU-native re-implementation of the reference's unimodal projection
+JAX re-implementation of the reference's unimodal projection
 (functions/project_unimodal_vector.m, the Stout 2008 prefix-isotonic
 algorithm) and of the `project_monotone` PAVA projection from the Proximity
 Operator Repository (dispatched at constraints_to_prox.m:25-31).

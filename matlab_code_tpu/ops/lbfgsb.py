@@ -1,6 +1,6 @@
 """Box-constrained limited-memory BFGS, jit-compatible.
 
-TPU-native replacement for the external L-BFGS-B-C MEX solver the reference
+JAX replacement for the external L-BFGS-B-C MEX solver the reference
 calls for KL / IS / beta-divergence subproblems (cmtf_fun_AOADMM.m:1409-1418,
 options at example_script7:64-69).  Runs entirely under jit as a
 lax.while_loop: fixed-size (m, n) curvature history, two-loop recursion,

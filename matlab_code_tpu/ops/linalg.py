@@ -40,26 +40,26 @@ def spd_inverse_from_chol(L: jnp.ndarray) -> jnp.ndarray:
     """B^{-1} = L^{-T} L^{-1} from the lower Cholesky factor of B.
 
     Used by the 'inverse' inner-solve mode: computed once per outer
-    iteration so every inner-ADMM solve becomes a single matmul (MXU)
-    instead of two triangular substitutions.  Batched over leading dims.
+    iteration so every inner-ADMM solve becomes a single matmul instead of
+    two triangular substitutions.  Batched over leading dims.
     """
     R = L.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(R, dtype=L.dtype), L.shape)
     Linv = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
-    return jnp.swapaxes(Linv, -1, -2) @ Linv
+    return jnp.matmul(jnp.swapaxes(Linv, -1, -2), Linv,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def spd_inverse_newton(B: jnp.ndarray, lmin=None, max_iters: int = 24,
                        polish: int = 2):
     """Batched SPD inverse by Newton-Hotelling iteration — matmuls only.
 
-    TPU replacement for chol + triangular inversion on K-BATCHED small
-    systems: jnp.linalg.cholesky of (512, 32, 32) costs ~2.0 ms on v5e
-    (sequential per-column kernel) while this runs ~0.65 ms as a chain of
-    batched MXU matmuls (docs/ROOFLINE.md).  X_{t+1} = X_t (2I - B X_t)
-    doubles correct digits per step; X_0 = 2/(lmin + ||B||_inf) I converges
-    for any SPD B.  TPU matmuls default to bf16 passes, so the main loop
-    runs at that precision (adaptive: stops once the residual stalls) and
+    The 'newton' inner-solve mode: replaces chol + triangular inversion on
+    (K-batched) small systems by a chain of batched matmuls.
+    X_{t+1} = X_t (2I - B X_t) doubles correct digits per step;
+    X_0 = 2/(lmin + ||B||_inf) I converges for any SPD B.  The main loop
+    runs at the ambient matmul precision (TF32 on a GPU under 'default';
+    adaptive: stops once the residual falls below a loose tolerance) and
     `polish` final steps run at Precision.HIGHEST to reach f32 quality —
     Newton is self-correcting, so the cheap iterations cost no accuracy.
 
@@ -77,7 +77,7 @@ def spd_inverse_newton(B: jnp.ndarray, lmin=None, max_iters: int = 24,
     denom = ninf if lmin is None else ninf + jnp.asarray(lmin, dt)
     c = (2.0 if lmin is not None else 1.0) / denom
     X0 = c[..., None, None] * jnp.broadcast_to(eye, B.shape)
-    # bf16-precision tolerance: stop the cheap loop once below it (or on
+    # reduced-precision tolerance: stop the cheap loop once below it (or on
     # stall); the HIGHEST-precision polish squares the remaining error.
     tol = 1e-2 if dt == jnp.float32 else 1e-6
 
@@ -131,17 +131,16 @@ def polar_orth_ns(M: jnp.ndarray, iters: int = 30,
     """Orthonormal polar factor of M via cubic Newton-Schulz iteration —
     matmuls only, no SVD.
 
-    Same mathematical result as `polar_orth` (cmtf_fun_AOADMM.m:532-534) but
-    TPU-friendly: batched econ-SVD of (K, J, R) slices lowers to a slow
-    per-slice kernel on TPU, while this runs as batched matmuls on the MXU.
-    X0 = M/||M||_F has singular values in (0, 1] ⊂ (0, √3), so
+    Same mathematical result as `polar_orth` (cmtf_fun_AOADMM.m:532-534),
+    computed with batched matmuls instead of a batched econ-SVD of the
+    (K, J, R) slices.  X0 = M/||M||_F has singular values in (0, 1] ⊂ (0, √3), so
     X ← 1.5·X − 0.5·X(XᵀX) converges cubically to the polar factor
     (Higham, Functions of Matrices, §8.3).
 
     The main loop is ADAPTIVE (while_loop on max_k ||XᵀX − I||, bound
     `iters`): well-conditioned slices exit in ~10 iterations instead of the
-    conservative fixed bound.  TPU matmuls run bf16 passes by default, so
-    the loop stalls near ~1e-3; `polish` final iterations at
+    conservative fixed bound.  Under reduced matmul precision (TF32 or
+    bf16) the loop stalls near ~1e-3; `polish` final iterations at
     Precision.HIGHEST then contract the orthogonality defect to f32 quality
     (the iteration is self-correcting).  Use `polar_orth` when LAPACK-grade
     accuracy is required (CPU/f64 parity paths keep the SVD).  Zero

@@ -1,5 +1,5 @@
 """Proximal operators / projections for all constraint types, plus the
-constraint -> prox dispatch (TPU-native constraints_to_prox).
+constraint -> prox dispatch (the JAX constraints_to_prox).
 
 Every kernel is a batched jnp op with signature prox(x, rho) -> x_hat, where
 rho is the (traced) ADMM penalty, matching the reference's closure convention
@@ -119,7 +119,7 @@ def make_quadratic_prox(L: jnp.ndarray, eta: float):
     """prox of eta * tr(x^T L x): solves (2 eta/rho L + I) z = x
     (constraints_to_prox.m:62-67).  L is constant, so we pre-eigendecompose at
     trace time and apply the rho-dependent filter spectrally — one matmul pair
-    on the MXU per call, no per-call factorization."""
+    per call, no per-call factorization."""
     lam, Q = jnp.linalg.eigh(L)
 
     def prox(x, rho):

@@ -1,10 +1,10 @@
-"""Dense tensor kernels: MTTKRP, Khatri-Rao, ktensor reconstruction, Grams.
+"""Tensor kernels: MTTKRP, Khatri-Rao, ktensor reconstruction, Grams.
 
-TPU-first equivalents of the Tensor Toolbox calls used by the reference
-(mttkrp at cmtf_fun_AOADMM.m:97, full(ktensor(...)) at cmtf_fun_AOADMM.m:416,
-innerprod at cmtf_fun_AOADMM.m:1226).  MTTKRP is expressed as an einsum so XLA
-contracts it as a chain of large matmuls on the MXU instead of materializing
-the Khatri-Rao product.
+Equivalents of the Tensor Toolbox calls used by the reference (mttkrp at
+cmtf_fun_AOADMM.m:97, full(ktensor(...)) at cmtf_fun_AOADMM.m:416, innerprod
+at cmtf_fun_AOADMM.m:1226).  Dense MTTKRP is expressed as an einsum so XLA
+contracts it as a chain of large matmuls (cuBLAS GEMMs on a GPU) instead of
+materializing the Khatri-Rao product.
 """
 from __future__ import annotations
 
@@ -16,14 +16,19 @@ import jax.numpy as jnp
 _LETTERS = string.ascii_lowercase
 
 
-def mttkrp(X: jnp.ndarray, factors: list[jnp.ndarray], mode: int) -> jnp.ndarray:
-    """Matricized-tensor times Khatri-Rao product for dense X.
+def mttkrp(X, factors: list[jnp.ndarray], mode: int) -> jnp.ndarray:
+    """Matricized-tensor times Khatri-Rao product of a dense array or a
+    COO SparseTensor — the one MTTKRP dispatch of the solver.
 
     Returns unfold(X, mode) @ khatri_rao(factors except mode), shape
-    (X.shape[mode], R).  Equivalent of Tensor Toolbox `mttkrp` as used at
-    cmtf_fun_AOADMM.m:97.  The einsum contracts one mode at a time (optimal
-    path), i.e. a chain of matmuls -> MXU.
+    (I_mode, R).  Equivalent of Tensor Toolbox `mttkrp` as used at
+    cmtf_fun_AOADMM.m:97.  Dense: the einsum contracts one mode at a time
+    (optimal path), i.e. a chain of matmuls.  Sparse: `mttkrp_sparse`.
     """
+    from matlab_code_tpu.problem import SparseTensor
+    if isinstance(X, SparseTensor):
+        return mttkrp_sparse(X.indices, X.values, list(factors), mode,
+                             factors[mode].shape[0])
     n = X.ndim
     assert len(factors) == n
     tensor_sub = _LETTERS[:n]
@@ -62,8 +67,9 @@ def mttkrp_sparse(indices: jnp.ndarray, values: jnp.ndarray,
     """MTTKRP of a COO sparse tensor: O(nnz * R) gather + segment-sum.
 
     Equivalent of Tensor Toolbox sptensor mttkrp (used by the reference for
-    sparse CP data at cmtf_fun_AOADMM.m:97).  Gathers stay on the VPU; the
-    reduction is a sorted/unsorted segment_sum over the target mode's index.
+    sparse CP data at cmtf_fun_AOADMM.m:97): per nonzero, gather the other
+    modes' factor rows and scatter-add the product into the target mode's
+    row (an unsorted segment_sum).
     """
     contrib = values[:, None]
     for j, f in enumerate(factors):

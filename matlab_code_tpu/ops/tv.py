@@ -1,6 +1,6 @@
 """Exact 1-D total-variation proximal operator (Condat's direct algorithm).
 
-TPU-native equivalent of the external TV_Condat_v2.m used by the reference's
+JAX equivalent of the external TV_Condat_v2.m used by the reference's
 prox_TV (functions/prox_TV.m:5-8).  The TV prox problem
 
     min_x 1/2 ||x - y||^2 + lam * sum_i |x[i+1] - x[i]|

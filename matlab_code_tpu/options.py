@@ -66,14 +66,14 @@ class AlgOptions:
     # fit() records out.time_at_it (cmtf_fun_AOADMM.m:455) by splitting the
     # fused while_loop into chunks of this many outer iterations and
     # timestamping each chunk boundary on the host (iterations inside a chunk
-    # are linearly interpolated).  Costs one extra dispatch (~1 ms) per chunk;
+    # are linearly interpolated).  Costs one dispatch and host sync per chunk;
     # 0 = single fused call per phase (time_at_it then has one mark per
     # phase).  fit_stepwise() always records exact per-iteration times.
     TimeAtItChunk: int = 25
     # Early ill-conditioning detection: a fit stops with exit flag
     # 'illconditioned lin system' when the rcond estimate of any assembled
     # normal matrix (from its Cholesky diagonal) drops below this tolerance —
-    # the TPU-native analogue of the reference's promotion of MATLAB's
+    # the analogue of the reference's promotion of MATLAB's
     # nearlySingularMatrix warning (cmtf_fun_AOADMM.m:83-84), which fires at
     # rcond < eps.  Set 0.0 to disable (then only the non-finite guard stops).
     IllCondTol: float = 2.220446049250313e-16
@@ -89,55 +89,36 @@ class AlgOptions:
     # Under fit(mesh=...): route dense CP MTTKRPs whose psum target divides
     # the mesh through the ring-pipelined collective-permute path
     # (parallel/shard_mttkrp.make_sharded_mttkrp_pipelined) so the
-    # factor-exchange transfer overlaps the next chunk's contraction
-    # (BASELINE north star; docs/ROOFLINE.md "Ring-pipelined MTTKRP").
+    # factor-exchange transfer overlaps the next chunk's contraction.
     # Results match the bulk-psum layout to float rounding (different
     # reduction association order).
     mesh_pipelined_collectives: bool = False
     # PARAFAC2 P_k update (polar factor, cmtf_fun_AOADMM.m:532-534) method:
     # 'svd' = batched econ-SVD (LAPACK-grade, the reference's math); 'ns' =
-    # cubic Newton-Schulz (matmuls only — batched per-slice SVD lowers to a
-    # very slow kernel on TPU, NS runs on the MXU); 'auto' = svd on CPU,
-    # ns on TPU.  Same mathematical result to ~sqrt(eps)*cond.
+    # cubic Newton-Schulz (ops/linalg.polar_orth_ns, matmuls only); 'auto'
+    # = svd on the CPU, ns on a GPU (AUTO_CHOICES, resolve_auto).  Same
+    # mathematical result to ~sqrt(eps)*cond.
     par2_polar: str = "auto"
     # Inner-ADMM factor solve: 'chol' = two triangular substitutions per
     # inner iteration against the cached Cholesky factor (the reference's
     # (A/L')/L, cmtf_fun_AOADMM.m:608-609); 'inverse' = invert the normal
     # matrix ONCE per outer iteration (from the same Cholesky factor, so
     # the rcond ill-conditioning check is unchanged) and run each inner
-    # iteration as one matmul — triangular solves are ~3x slower than the
-    # equivalent matmul on the TPU MXU; 'newton' = invert by Newton-
-    # Hotelling iteration (ops/linalg.spd_inverse_newton) — no Cholesky at
-    # all, which matters for K-BATCHED systems (PARAFAC2 Bk/C rows): a
-    # (512,32,32) batched Cholesky costs ~2.0 ms on v5e vs ~0.65 ms for the
-    # matmul-only inverse; ill-conditioning is screened by the inf-norm
-    # rcond estimate instead of the Cholesky diagonal.  All three give the
-    # same solution to ~eps*cond.  'auto' = chol on CPU (bitwise reference
-    # parity); on TPU, newton for batched systems and inverse for single.
+    # iteration as one matmul; 'newton' = invert by Newton-Hotelling
+    # iteration (ops/linalg.spd_inverse_newton) — no Cholesky at all;
+    # ill-conditioning is screened by the inf-norm rcond estimate instead
+    # of the Cholesky diagonal.  All three give the same solution to
+    # ~eps*cond.  'auto' = chol on the CPU, inverse on a GPU (AUTO_CHOICES,
+    # resolve_auto).
     inner_solve: str = "auto"
-    # Sparse COO MTTKRP implementation: 'gather' = jnp gather + segment-sum
-    # (ops/tensor.mttkrp_sparse — random-access-bound on TPU, ~16 GB/s
-    # effective); 'pallas' = the one-hot-MXU kernel (ops/sparse_pallas.py,
-    # needs SparseTensor.plans — fit() attaches them automatically);
-    # 'auto' = pallas on TPU when plans are present, gather otherwise.
-    sparse_mttkrp: str = "auto"
-    # bf16 splits per one-hot matmul in the pallas sparse MTTKRP: 3 =
-    # f32-faithful (default), 2 ~ 1e-5 relative, 1 = fastest (~2e-3, the
-    # raw single-pass MXU feed).  See ops/sparse_pallas.py.
-    sparse_pallas_passes: int = 3
     # Matmul/einsum precision for the WHOLE solver program (fit /
     # fit_stepwise / fit_multistart trace under
-    # jax.default_matmul_precision(<value>) when != 'default').  TPU f32
-    # matmuls default to single bf16 passes; the resulting ~1e-3 relative
-    # error in the MTTKRPs/normal equations puts a FLOOR on the reachable
-    # objective — measured on the bench flagship (type-4, noise-free,
-    # v5e): the default-precision fit oscillates at f_tensors ~1.3e-2 for
-    # 12000 iterations while 'float32' (3-pass) converges to the 1e-4
-    # tolerance in 630 — so tight AbsFuncTol on TPU needs 'float32'
-    # despite the higher per-iteration cost (docs/ROOFLINE.md "Matmul
-    # precision vs convergence").  CPU/f64 runs are unaffected ('default'
-    # is already full precision there).  Choices: 'default' (backend
-    # default), 'bfloat16', 'tensorfloat32', 'float32', 'highest'.
+    # jax.default_matmul_precision(<value>) when != 'default').  On a GPU,
+    # 'default' lets float32 matmuls run in TF32 (a 10-bit mantissa), which
+    # can hold the objective above a tight AbsFuncTol; 'highest' keeps full
+    # float32.  CPU runs are unaffected ('default' is already full
+    # precision there).  Choices: 'default' (backend default), 'bfloat16',
+    # 'tensorfloat32', 'float32', 'highest'.
     matmul_precision: str = "default"
 
     def __post_init__(self):
@@ -147,12 +128,6 @@ class AlgOptions:
         if self.inner_solve not in ("auto", "chol", "inverse", "newton"):
             raise ValueError(f"inner_solve must be 'auto'|'chol'|'inverse'"
                              f"|'newton', got {self.inner_solve!r}")
-        if self.sparse_mttkrp not in ("auto", "gather", "pallas"):
-            raise ValueError(f"sparse_mttkrp must be 'auto'|'gather'|"
-                             f"'pallas', got {self.sparse_mttkrp!r}")
-        if self.sparse_pallas_passes not in (1, 2, 3):
-            raise ValueError(f"sparse_pallas_passes must be 1, 2 or 3, "
-                             f"got {self.sparse_pallas_passes!r}")
         if self.Display not in ("iter", "final", "no"):
             raise ValueError(f"Display must be 'iter'|'final'|'no', "
                              f"got {self.Display!r}")
@@ -169,25 +144,54 @@ class AlgOptions:
     par2_polar_iters: int = 40
     # share the X x_0 A partial between the mode-1/2 MTTKRPs of 3-way CP
     # sweeps (exact numerics; trades one data pass for an (J,K,R)
-    # intermediate — measured slower on v5e for the bench shapes, so off by
-    # default; the PARAFAC2 W-reuse is free and always on)
+    # intermediate).  Off by default; the PARAFAC2 W-reuse is free and
+    # always on.
     cp_dimension_tree: bool = False
     # Pairwise-perturbation MTTKRP acceleration (Ma & Solomonik,
     # arXiv:2010.12056) for 3-way Frobenius CP datasets without missing
     # masks: once sweep-over-sweep factor steps fall below pp_start_tol,
     # MTTKRPs are evaluated to first order from cached pairwise partials
-    # (T_nm = X contracted with one reference factor) — dense MXU einsums
+    # (T_nm = X contracted with one reference factor) — dense einsums
     # instead of data passes — and the partials are rebuilt whenever the
     # accumulated perturbation exceeds pp_refresh_tol.  APPROXIMATE
     # (error O(perturbation^2) per MTTKRP, shrinking as the fit converges);
     # opt-in, off by default; biggest win for sparse COO datasets where a
-    # data pass is gather-bound (docs/ROOFLINE.md).  The objective stream
+    # data pass is a gather over every nonzero.  The objective stream
     # carries O(pp_refresh_tol^2)-relative noise during PP-active
     # iterations (the cached-MTTKRP objective reads the approximate
     # MTTKRP); fit() recomputes the FINAL objective exactly.
     cp_pairwise_perturbation: bool = False
     pp_start_tol: float = 0.02
     pp_refresh_tol: float = 0.05
+
+
+# The concrete value of every 'auto' option, per JAX backend.  CPU keeps
+# the reference's math (Cholesky substitutions, SVD polar factor), which the
+# bit-exact parity tests pin.  The GPU entries were chosen by timing every
+# choice on an H100 in the flagship and PARAFAC2 programs (PERF.md): the
+# batched econ-SVD of (512, 256, 32) slices made a PARAFAC2 iteration ~200x
+# slower than Newton-Schulz, and 'inverse' beat 'chol' and 'newton' per
+# iteration and to tolerance in both.
+AUTO_CHOICES = {
+    "cpu": {"inner_solve": "chol", "par2_polar": "svd"},
+    "gpu": {"inner_solve": "inverse", "par2_polar": "ns"},
+}
+
+
+def resolve_auto(options: AlgOptions, backend: str | None = None
+                 ) -> AlgOptions:
+    """Return `options` with every 'auto' field replaced by the concrete
+    choice for `backend` (default: jax.default_backend()).  Raises
+    ValueError for a backend with no entry in AUTO_CHOICES."""
+    if backend is None:
+        import jax
+        backend = jax.default_backend()
+    if backend not in AUTO_CHOICES:
+        raise ValueError(f"no 'auto' choices for backend {backend!r}; "
+                         f"known: {sorted(AUTO_CHOICES)}")
+    auto = {k: v for k, v in AUTO_CHOICES[backend].items()
+            if getattr(options, k) == "auto"}
+    return replace(options, **auto) if auto else options
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,13 @@
 """Multi-host / multi-process backend for the coupled solver.
 
 The reference is single-process MATLAB (SURVEY.md §2.3); this module is the
-distributed runtime the TPU build adds.  On a multi-host TPU slice, every
-process calls `initialize()` before building a mesh; `make_global_mesh`
-then spans all hosts' devices, and the sharding layouts in
-parallel/sharding.py place ICI collectives within a slice and DCN
-collectives across slices exactly as jax/XLA derive them from the device
-order.
+distributed runtime this framework adds.  Where several processes share a
+run — one per GPU of a host, or one per host — every process calls
+`initialize()` before building a mesh; `make_global_mesh` then spans all
+processes' devices, and the sharding layouts in parallel/sharding.py place
+the collectives (NCCL over NVLink between the GPUs of a host) exactly as
+jax/XLA derive them from the device order.  One process can also drive all
+GPUs of a host on its own, with no `initialize()` at all.
 
 Host-local numpy data becomes global (cross-process) jax.Arrays through
 `globalize` / `globalize_tree`; results come back to every host through
@@ -25,8 +26,10 @@ import numpy as np
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Wrapper over jax.distributed.initialize with TPU auto-detection
-    (all-None on Cloud TPU pods auto-configures from the metadata server)."""
+    """Wrapper over jax.distributed.initialize.  On one host with several
+    GPUs and no cluster manager, pass all three arguments: a coordinator
+    address such as 'localhost:<free port>', the number of processes and
+    this process's id."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

@@ -16,7 +16,7 @@ def ring_permute_census(txt: str, n: int) -> dict:
 
     Checks the overlap design: n-1 collective-permute sites per ring
     (sync form, or async start/done pairs on backends whose scheduler
-    splits collectives — the TPU async pass; the CPU backend lowers them
+    splits collectives, such as the GPU's; the CPU backend lowers them
     synchronously), at least one all-gather (the tiled factor
     re-replication), and dataflow independence — every permute result is
     consumed JOINTLY WITH a dot/fusion that is not downstream of it

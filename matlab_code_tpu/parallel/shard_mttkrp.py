@@ -1,8 +1,9 @@
 """Explicit SPMD MTTKRP via shard_map: partial per-shard MTTKRPs reduced
-with psum over the ICI mesh axis.
+with psum over the mesh axis.
 
 This is the hand-written collective layout of SURVEY.md §2.3 ("shard each
-tensor along its longest mode ... partial MTTKRPs reduced over ICI"); the
+tensor along its longest mode ... partial MTTKRPs reduced" over the
+interconnect); the
 pjit path in parallel/sharding.py lets XLA derive the same program from
 sharding annotations — this module pins it explicitly, which also makes the
 communication cost auditable: one psum of an (I_m, R) matrix per mode update.
@@ -69,7 +70,7 @@ def make_sharded_mttkrp_pipelined(mesh: Mesh, axis: str, ndim: int,
     accumulator chunk of I_m/n rows crosses n-1 links) but is spread
     across the sweep instead of serialized at the end.  Wins when the
     per-chunk contraction time >= the chunk transfer time, i.e.
-    compute-heavy shards (see docs/ROOFLINE.md).  Requires
+    compute-heavy shards.  Requires
     I_m % n_devices == 0 and target_mode != shard_dim
     (build_sharded_mttkrps falls back to the bulk-psum path otherwise).
     The ring accumulates in a different association order than psum, so
@@ -110,7 +111,7 @@ def make_sharded_mttkrp_sparse(mesh: Mesh, axis: str, target_mode: int,
 
     Every shard computes a full-size (D_mode, R) partial via local
     gather + segment-sum (ops/tensor.mttkrp_sparse — the sptensor mttkrp of
-    cmtf_fun_AOADMM.m:97) and the partials are psum-reduced over ICI: the
+    cmtf_fun_AOADMM.m:97) and the partials are psum-reduced over the mesh: the
     sparse analogue of the dense mode-partitioned layout (SURVEY.md §2.3).
     nnz padding (zero values at index 0) contributes exactly zero.
     """
@@ -149,7 +150,7 @@ def pad_sparse_nnz(X, n: int):
     idx = jnp.concatenate(
         [X.indices, jnp.zeros((pad, X.indices.shape[1]), X.indices.dtype)])
     val = jnp.concatenate([X.values, jnp.zeros((pad,), X.values.dtype)])
-    return SparseTensor(idx, val, X.plans)
+    return SparseTensor(idx, val)
 
 
 def build_sharded_mttkrps(spec, data, mesh, axis=None, pipelined=False):

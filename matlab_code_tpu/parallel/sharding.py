@@ -1,13 +1,13 @@
-"""Multi-chip sharding layouts for coupled factorizations.
+"""Multi-device sharding layouts for coupled factorizations.
 
 The reference is serial MATLAB (SURVEY.md §2.3); this module is the
-first-class sharding design the TPU build adds:
+first-class sharding design this framework adds:
 
   * CP/matrix datasets: the data tensor is sharded along its LONGEST mode
     over the mesh's data axis; ALL factor matrices stay replicated (they are
     I x R with small R, and replication keeps every mode's ALS/ADMM solve
     local).  XLA partitions the MTTKRP einsum into per-shard partial MTTKRPs
-    and inserts the psum over ICI automatically — the partial-MTTKRP +
+    and inserts the psum over the interconnect automatically — the partial-MTTKRP +
     all-reduce layout of the scaling plan.  (Row-sharding the long mode's
     factor is a possible refinement; parallel/shard_mttkrp.py shows the
     explicit collective structure it would pin.)
@@ -71,18 +71,13 @@ def data_shardings(spec: ProblemSpec, data: ProblemData, mesh: Mesh):
             X = data.objects[p]
             if X.indices.shape[0] % n == 0:
                 # nnz-partitioned COO stream; factors stay replicated, so no
-                # mode becomes row-sharded.  Pallas plans (if any) are
-                # pattern-global and replicated.
+                # mode becomes row-sharded.
                 objects.append(SparseTensor(
                     indices=_shard_axis(mesh, 2, 0),
-                    values=NamedSharding(mesh, P(DATA_AXIS)),
-                    plans=(None if X.plans is None else
-                           jax.tree.map(lambda _: _rep(mesh), X.plans))))
+                    values=NamedSharding(mesh, P(DATA_AXIS))))
             else:
                 objects.append(SparseTensor(
-                    indices=_rep(mesh), values=_rep(mesh),
-                    plans=(None if X.plans is None else
-                           jax.tree.map(lambda _: _rep(mesh), X.plans))))
+                    indices=_rep(mesh), values=_rep(mesh)))
         elif ds.model == CP:
             local = choose_cp_shard_mode(spec, p, n)
             if local is None:

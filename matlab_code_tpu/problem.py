@@ -153,29 +153,13 @@ class SparseTensor:
     Tensor Toolbox `sptensor`).  indices (nnz, ndim) int32, values (nnz,).
     Like the reference, restricted to Frobenius loss and incompatible with
     missing-data masks (cmtf_AOADMM.m:77-79).
-
-    plans: optional per-mode blocked layouts for the Pallas one-hot-MXU
-    MTTKRP (ops/sparse_pallas.py; 3-way tensors only) — attach with
-    `with_plans()` (fit() does this automatically on TPU).  The plan
-    depends only on the sparsity pattern; values are carried in plan order.
     """
     indices: Any
     values: Any
-    plans: Any = None
 
     @property
     def ndim(self):
         return self.indices.shape[1]
-
-    def with_plans(self, shape, block: int = 512):
-        """Attach Pallas MTTKRP plans (host-side preprocessing, once per
-        sparsity pattern).  shape: the dense mode sizes of this tensor."""
-        from matlab_code_tpu.ops.sparse_pallas import build_plans
-        if self.ndim != 3:
-            return self
-        return SparseTensor(self.indices, self.values,
-                            build_plans(self.indices, self.values, shape,
-                                        block=block))
 
     @staticmethod
     def from_dense(X, threshold=0.0):

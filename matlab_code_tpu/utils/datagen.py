@@ -318,7 +318,7 @@ def create_coupled_data(spec: ProblemSpec, lambdas, noise, distr,
             sigma[p] = sig
 
     objects = []
-    dt = jnp.result_type(float)   # f64 under x64, f32 on TPU default
+    dt = jnp.result_type(float)   # f64 under x64, f32 otherwise
     for p, ds in enumerate(spec.datasets):
         if ds.model == PAR2:
             objects.append(Parafac2Tensor.from_list(X[p], dtype=dt))

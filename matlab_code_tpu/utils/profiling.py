@@ -60,18 +60,47 @@ def sweep_flops(spec: ProblemSpec, dtype_bytes: int = 4) -> dict:
     return {"flops_per_sweep": flops, "hbm_bytes_per_sweep": bytes_}
 
 
+# Published peak rates, keyed by jax's `device_kind`.  NVIDIA H100 SXM data
+# sheet: dense rates without sparsity, at the card's full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "bf16_flops": 989e12,
+        "tf32_flops": 495e12,
+        "fp32_flops": 67e12,
+    },
+}
+
+
+def device_peaks(device_kind: str | None = None) -> dict:
+    """Peak rates of `device_kind` (default: the first JAX device's).  A
+    device missing from PEAKS is an error, never a default."""
+    if device_kind is None:
+        import jax
+        device_kind = jax.devices()[0].device_kind
+    if device_kind not in PEAKS:
+        raise ValueError(f"no peak rates for device kind {device_kind!r}; "
+                         f"known: {sorted(PEAKS)}")
+    return PEAKS[device_kind]
+
+
 def roofline_report(spec: ProblemSpec, seconds_per_iter: float,
-                    peak_flops: float = 9.8e13, peak_bw: float = 8.2e11,
+                    device_kind: str | None = None,
+                    flops_key: str = "tf32_flops",
                     dtype_bytes: int = 4) -> str:
-    """Roofline position of the measured outer iteration (defaults: TPU v5e
-    f32 matmul peak, HBM bandwidth)."""
+    """Roofline position of the measured outer iteration against the peaks
+    of `device_kind` (device_peaks).  flops_key names the matmul peak that
+    matches the run's precision: 'tf32_flops' for float32 at 'default' on
+    a GPU, 'fp32_flops' at 'highest', 'bf16_flops' for bfloat16."""
+    peaks = device_peaks(device_kind)
+    peak_flops, peak_bw = peaks[flops_key], peaks["hbm_bytes_per_s"]
     s = sweep_flops(spec, dtype_bytes)
     achieved_f = s["flops_per_sweep"] / seconds_per_iter
     achieved_b = s["hbm_bytes_per_sweep"] / seconds_per_iter
     return (f"sweep: {s['flops_per_sweep']/1e9:.2f} GFLOP, "
             f"{s['hbm_bytes_per_sweep']/1e6:.1f} MB\n"
             f"achieved: {achieved_f/1e9:.1f} GFLOP/s "
-            f"({100*achieved_f/peak_flops:.1f}% of matmul peak), "
+            f"({100*achieved_f/peak_flops:.1f}% of {flops_key} peak), "
             f"{achieved_b/1e9:.1f} GB/s "
             f"({100*achieved_b/peak_bw:.1f}% of HBM peak)")
 

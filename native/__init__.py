@@ -3,7 +3,7 @@
 Builds lazily on first import (g++ -O3 -shared).  These are the C++
 equivalents of the reference's external native dependencies (TV_Condat_v2,
 Proximity Operator Repository kernels, L-BFGS-B-C) and serve as the golden
-host path; the TPU compute path uses matlab_code_tpu/ops/.
+host path; the device compute path uses matlab_code_tpu/ops/.
 """
 from __future__ import annotations
 
@@ -49,16 +49,7 @@ def _load():
     lib.lbfgsb_minimize.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, dptr, ctypes.c_int64, dptr, dptr,
         ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double]
-    iptr = ctypes.POINTER(ctypes.c_int32)
     lptr = ctypes.POINTER(ctypes.c_int64)
-    lib.sparse_plan_build.restype = ctypes.c_int64
-    lib.sparse_plan_build.argtypes = [
-        iptr, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p)]
-    lib.sparse_plan_export.argtypes = [
-        ctypes.c_void_p, iptr, iptr, iptr, iptr, lptr, lptr]
-    lib.sparse_plan_free.argtypes = [ctypes.c_void_p]
     lib.matlab_randn_oracle.argtypes = [ctypes.c_uint32, ctypes.c_int64,
                                         dptr, lptr]
     lib.matlab_rand_oracle.argtypes = [ctypes.c_uint32, ctypes.c_int64,
@@ -121,39 +112,6 @@ def simplex_project(y: np.ndarray, eta: float = 1.0) -> np.ndarray:
     _lib.simplex_project(yp, x.ctypes.data_as(
         ctypes.POINTER(ctypes.c_double)), y.shape[0], eta)
     return x
-
-
-def sparse_plan(indices: np.ndarray, mode: int, gm0: int, gm1: int,
-                dk: int, dpad: int, block: int, tile: int = 128):
-    """Native sort/bucket/chop/pack for the sparse-MTTKRP Pallas plan
-    (ops/sparse_pallas.build_plan_mode's production path; LSD-radix keyed
-    sort, ~9.5x the numpy/Python builder per mode at 1e7 nnz on this
-    2-core host).  Returns (packed (nb, block) int32,
-    btile, ctile, rowstart (nb,) int32, slots, order (nnz,) int64): nonzero
-    t of the sorted stream came from input row order[t] and lives at flat
-    position slots[t] of packed."""
-    idx = np.ascontiguousarray(indices, dtype=np.int32)
-    nnz, ncols = idx.shape
-    i32 = ctypes.POINTER(ctypes.c_int32)
-    i64 = ctypes.POINTER(ctypes.c_int64)
-    h = ctypes.c_void_p()
-    nb = _lib.sparse_plan_build(
-        idx.ctypes.data_as(i32), nnz, ncols, mode, gm0, gm1,
-        dk, dpad, block, tile, ctypes.byref(h))
-    try:
-        packed = np.empty((nb, block), np.int32)
-        btile = np.empty(nb, np.int32)
-        ctile = np.empty(nb, np.int32)
-        rowstart = np.empty(nb, np.int32)
-        slots = np.empty(nnz, np.int64)
-        order = np.empty(nnz, np.int64)
-        _lib.sparse_plan_export(
-            h, packed.ctypes.data_as(i32), btile.ctypes.data_as(i32),
-            ctile.ctypes.data_as(i32), rowstart.ctypes.data_as(i32),
-            slots.ctypes.data_as(i64), order.ctypes.data_as(i64))
-    finally:
-        _lib.sparse_plan_free(h)
-    return packed, btile, ctile, rowstart, slots, order
 
 
 def matlab_randn_oracle(n, seed=5489):

@@ -1,6 +1,6 @@
 // Native host-side kernel library for matlab_code_tpu.
 //
-// TPU-native replacements for the reference's external native dependencies
+// Native replacements for the reference's external native dependencies
 // (L-BFGS-B-C, TV_Condat_v2, Proximity Operator Repository — README.md:7-10):
 // exact 1-D total-variation prox (Condat's direct algorithm), isotonic (PAVA)
 // and unimodal (Stout prefix-isotonic) regression, simplex projection, and a
@@ -344,154 +344,6 @@ int64_t lbfgsb_minimize(fg_fn fg, void* ctx, double* x, int64_t n,
   }
   std::memcpy(x, xv.data(), sizeof(double) * n);
   return it;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Sparse-MTTKRP Pallas plan builder (host preprocessing).
-//
-// Native equivalent of matlab_code_tpu/ops/sparse_pallas.build_plan_mode's
-// sort/bucket/chop/pack phases (the Python/numpy path costs ~45 s at 1e7
-// nonzeros; this is the production path, the Python builder stays as the
-// golden reference).  Layout contract is identical: nonzeros lex-sorted by
-// (j-tile, k-tile, i), chopped into <=`block`-nnz blocks that stay within
-// one bucket and one TILE-row output window, local offsets packed into one
-// int32 per nonzero (bits 0-6 j_loc, 7-13 k_loc, 14-20 i_rel).
-// ---------------------------------------------------------------------------
-
-namespace {
-struct SparsePlanHandle {
-  int64_t nb = 0;
-  int64_t block = 0;
-  std::vector<int32_t> packed;   // nb * block codes (0 = padding)
-  std::vector<int32_t> btile, ctile, rowstart;
-  std::vector<int64_t> slots;    // per SORTED nnz: flat index into packed
-  std::vector<int64_t> order;    // per SORTED nnz: original nnz index
-};
-}  // namespace
-
-extern "C" {
-
-// Build the plan for one target mode.  indices: (nnz, ncols) row-major
-// int32; mode/gm0/gm1: target and gathered column ids; dpad: padded output
-// rows (multiple of 8, >= TILE); block: nnz per block; tile: output window
-// and factor-tile rows (128).  Returns an opaque handle via *out and the
-// number of blocks; call sparse_plan_export then sparse_plan_free.
-int64_t sparse_plan_build(const int32_t* indices, int64_t nnz, int64_t ncols,
-                          int32_t mode, int32_t gm0, int32_t gm1,
-                          int64_t dk, int64_t dpad, int64_t block,
-                          int64_t tile, void** out) {
-  auto* h = new SparsePlanHandle();
-  h->block = block;
-  const int64_t ntk = (dk + tile - 1) / tile;
-  // sort by composite key (bucket << 32 | i); buckets = jt * ntk + kt.
-  // LSD radix (stable, so equal triples keep input order — matching
-  // np.lexsort); constant key bytes are skipped, so e.g. a 2048^3 tensor
-  // needs 5 of the 8 passes.
-  std::vector<uint64_t> key(nnz), key2(nnz);
-  std::vector<int64_t> ord(nnz), ord2(nnz);
-  uint64_t maxkey = 0;
-  for (int64_t t = 0; t < nnz; ++t) {
-    const int32_t* row = indices + t * ncols;
-    const uint64_t jt = static_cast<uint64_t>(row[gm0]) / tile;
-    const uint64_t kt = static_cast<uint64_t>(row[gm1]) / tile;
-    key[t] = ((jt * ntk + kt) << 32) | static_cast<uint32_t>(row[mode]);
-    maxkey |= key[t];
-    ord[t] = t;
-  }
-  for (int shift = 0; shift < 64; shift += 8) {
-    if (!((maxkey >> shift) & 0xFF)) continue;
-    int64_t hist[257] = {0};
-    for (int64_t t = 0; t < nnz; ++t)
-      ++hist[((key[t] >> shift) & 0xFF) + 1];
-    for (int b = 0; b < 256; ++b) hist[b + 1] += hist[b];
-    for (int64_t t = 0; t < nnz; ++t) {
-      const int64_t pos = hist[(key[t] >> shift) & 0xFF]++;
-      key2[pos] = key[t];
-      ord2[pos] = ord[t];
-    }
-    key.swap(key2);
-    ord.swap(ord2);
-  }
-  key2.clear();
-  key2.shrink_to_fit();
-  ord2.clear();
-  ord2.shrink_to_fit();
-
-  // chop into blocks (bucket-local, one output window each)
-  std::vector<int64_t> lo_v, hi_v, rs_v;
-  int64_t pos = 0;
-  while (pos < nnz) {
-    const uint64_t bucket = key[pos] >> 32;
-    int64_t bend = pos;
-    while (bend < nnz && (key[bend] >> 32) == bucket) ++bend;
-    while (pos < bend) {
-      int64_t cand = std::min(pos + block, bend);
-      const int64_t i0 = static_cast<uint32_t>(key[pos]);
-      int64_t rs = std::min((i0 / 8) * 8, dpad - tile);
-      const int64_t ilast = static_cast<uint32_t>(key[cand - 1]);
-      if (ilast - rs >= tile) {
-        // first index with i >= rs + tile (binary search on the i bits)
-        const uint64_t limit = (bucket << 32) |
-                               static_cast<uint32_t>(rs + tile);
-        cand = std::lower_bound(key.begin() + pos, key.begin() + cand,
-                                limit) -
-               key.begin();
-      }
-      lo_v.push_back(pos);
-      hi_v.push_back(cand);
-      rs_v.push_back(rs);
-      pos = cand;
-    }
-  }
-
-  const int64_t nb = static_cast<int64_t>(lo_v.size());
-  h->nb = nb;
-  h->packed.assign(nb * block, 0);
-  h->btile.resize(nb);
-  h->ctile.resize(nb);
-  h->rowstart.resize(nb);
-  h->slots.resize(nnz);
-  h->order.resize(nnz);
-  for (int64_t b = 0; b < nb; ++b) {
-    const int64_t lo = lo_v[b], hi = hi_v[b], rs = rs_v[b];
-    const int32_t* first = indices + ord[lo] * ncols;
-    h->btile[b] = first[gm0] / tile;
-    h->ctile[b] = first[gm1] / tile;
-    h->rowstart[b] = static_cast<int32_t>(rs);
-    for (int64_t t = lo; t < hi; ++t) {
-      const int64_t src = ord[t];
-      const int32_t* row = indices + src * ncols;
-      const int32_t jl = row[gm0] % tile;
-      const int32_t kl = row[gm1] % tile;
-      const int32_t ir = static_cast<int32_t>(row[mode] - rs);
-      const int64_t slot = b * block + (t - lo);
-      h->packed[slot] = jl | (kl << 7) | (ir << 14);
-      h->slots[t] = slot;
-      h->order[t] = src;
-    }
-  }
-  *out = h;
-  return nb;
-}
-
-// Copy plan arrays into caller buffers: packed (nb*block) int32,
-// btile/ctile/rowstart (nb) int32, slots/order (nnz) int64.
-void sparse_plan_export(void* handle, int32_t* packed, int32_t* btile,
-                        int32_t* ctile, int32_t* rowstart, int64_t* slots,
-                        int64_t* order) {
-  auto* h = static_cast<SparsePlanHandle*>(handle);
-  std::memcpy(packed, h->packed.data(), h->packed.size() * sizeof(int32_t));
-  std::memcpy(btile, h->btile.data(), h->nb * sizeof(int32_t));
-  std::memcpy(ctile, h->ctile.data(), h->nb * sizeof(int32_t));
-  std::memcpy(rowstart, h->rowstart.data(), h->nb * sizeof(int32_t));
-  std::memcpy(slots, h->slots.data(), h->slots.size() * sizeof(int64_t));
-  std::memcpy(order, h->order.data(), h->order.size() * sizeof(int64_t));
-}
-
-void sparse_plan_free(void* handle) {
-  delete static_cast<SparsePlanHandle*>(handle);
 }
 
 }  // extern "C"

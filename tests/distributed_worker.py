@@ -2,8 +2,8 @@
 
 Each of N processes owns 4 virtual CPU devices (XLA_FLAGS set by the
 parent); jax.distributed connects them into one 4N-device runtime with
-gloo-backed cross-process collectives (the DCN analogue of a multi-host
-TPU slice).  The worker rebuilds the deterministic flagship problem,
+gloo-backed cross-process collectives (the CPU stand-in for NCCL between
+the GPUs of several processes).  The worker rebuilds the deterministic flagship problem,
 globalizes data + state with the production shardings
 (parallel/sharding.py), runs the FULL fit() over the global mesh, and
 compares trajectory + final factors against the single-process baseline

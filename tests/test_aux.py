@@ -3,6 +3,7 @@ import os
 import tempfile
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -130,8 +131,11 @@ def test_profiling_utils():
     assert "x" in t.summary()
     s = sweep_flops(spec)
     assert s["flops_per_sweep"] > 0
-    rep = roofline_report(spec, 1e-3)
-    assert "GFLOP" in rep
+    rep = roofline_report(spec, 1e-3, device_kind="NVIDIA H100 80GB HBM3")
+    assert "GFLOP" in rep and "tf32_flops" in rep
+    # an unknown device is an error, never a default
+    with pytest.raises(ValueError, match="no peak rates"):
+        roofline_report(spec, 1e-3, device_kind="cpu")
 
 
 def test_sharded_step_matches_single_device():

@@ -121,7 +121,7 @@ def test_lbfgsb_rosenbrock_box():
 
 
 def test_spd_inverse_newton():
-    """Matmul-only Newton-Hotelling inverse (the TPU batched-system path)
+    """Matmul-only Newton-Hotelling inverse (inner_solve='newton')
     matches the Cholesky inverse; rcond estimate bounds the true rcond."""
     # single matrix, with and without the eigenvalue lower bound
     B = jnp.asarray(_spd(24))

@@ -76,7 +76,7 @@ def test_lbfgsb_native_quadratic():
 
 
 def test_matlab_randn_cross_validation_independent_cpp():
-    """VERDICT-r4 item 7: the randn rejection paths, cross-validated
+    """The randn rejection paths, cross-validated
     against the INDEPENDENT C++ reconstruction in native/kernels.cc
     (sequential Matsumoto-Nishimura mt19937ar vs the Python module's
     vectorized twist; runtime long-double-solved ziggurat table vs the

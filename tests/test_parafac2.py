@@ -258,7 +258,7 @@ def test_irregular_par2_tv_bk():
 
 
 def test_par2_polar_ns_matches_svd():
-    """par2_polar='ns' (Newton-Schulz P_k, the TPU default) reproduces the
+    """par2_polar='ns' (matmul-only Newton-Schulz P_k) reproduces the
     'svd' fit: same trajectory to ~1e-8 and the same recovery."""
     import dataclasses
     K, J, I = 8, 15, 10
@@ -285,7 +285,7 @@ def test_par2_polar_ns_matches_svd():
 
 def test_inner_solve_inverse_matches_chol():
     """inner_solve='inverse' (one matmul per inner iteration against the
-    precomputed normal-matrix inverse; TPU default) reproduces the 'chol'
+    precomputed normal-matrix inverse) reproduces the 'chol'
     triangular-substitution fit across CP + PAR2 + coupling."""
     import dataclasses
     K, J, I0 = 6, 12, 8
@@ -319,7 +319,7 @@ def test_inner_solve_inverse_matches_chol():
 
 def test_inner_solve_newton_matches_chol():
     """inner_solve='newton' (matmul-only Newton-Hotelling inverse of the
-    K-batched normal matrices; TPU default for batched systems) reproduces
+    K-batched normal matrices) reproduces
     the 'chol' fit across CP + PAR2 + coupling."""
     import dataclasses
     K, J, I0 = 6, 12, 8
